@@ -3,9 +3,9 @@ chunked product streaming and the sharded mesh path."""
 
 import numpy as np
 
-import seqalib_tpu as sa
-from seqalib_tpu.oracle import sw_linear
-from seqalib_tpu.types import ScoringParams
+import seqalib as sa
+from seqalib.oracle import sw_linear
+from seqalib.types import ScoringParams
 
 SP = ScoringParams(match=2, mismatch=-3, gap_open=0, gap_extend=-2)
 
@@ -51,7 +51,7 @@ def test_all_vs_all_chunked(rng):
 
 
 def test_all_vs_all_sharded(rng):
-    from seqalib_tpu.parallel.dist import make_pair_mesh
+    from seqalib.parallel.dist import make_pair_mesh
 
     reads, refs = _mk(rng)
     out = sa.align_all_vs_all(
@@ -74,7 +74,7 @@ def test_all_vs_all_resume(rng, tmp_path, monkeypatch):
     for f in base:
         assert np.array_equal(base[f], first[f])
 
-    import seqalib_tpu.api as api
+    import seqalib.api as api
 
     def boom(*a, **k):
         raise AssertionError("resume must not realign finished chunks")

@@ -1,4 +1,4 @@
-"""CLI surface (`python -m seqalib_tpu.cli`) smoke + parity tests.
+"""CLI surface (`python -m seqalib.cli`) smoke + parity tests.
 
 Oracle backend only: instant, no kernel compiles; the device backends'
 correctness is covered by the parity suites.
@@ -8,9 +8,16 @@ import json
 
 import pytest
 
-from seqalib_tpu.cli import main
-from seqalib_tpu.oracle import align_oracle
-from seqalib_tpu.types import ScoringParams, encode_dna, encode_protein
+from seqalib.cli import main
+from seqalib.oracle import align_oracle
+from seqalib.types import ScoringParams, encode_dna, encode_protein
+
+
+@pytest.fixture(autouse=True)
+def _no_compile_cache(monkeypatch, tmp_path):
+    """main() enables the persistent compile cache unless this variable is
+    set; set it so the tests leave the process's cache config alone."""
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
 
 
 def _run_align(capsys, *argv):
@@ -67,6 +74,13 @@ def test_cli_rejects_bad_mode():
         main(["align", "A", "A", "--mode", "sideways"])
 
 
+@pytest.mark.parametrize("cmd", [["align", "A", "A"], ["bench", "1"]])
+def test_cli_rejects_removed_backend(cmd, capsys):
+    with pytest.raises(SystemExit):
+        main([*cmd, "--backend", "pallas"])
+    assert "oracle, xla" in capsys.readouterr().err
+
+
 def test_cli_bench_config1_xla_parity(capsys):
     """cmd_bench end-to-end on CPU: config 1 (NW global + traceback) with
     the full parity gate on the xla backend, tiny pairs."""
@@ -82,7 +96,7 @@ def test_cli_bench_config1_xla_parity(capsys):
 
 def test_cli_bench_config4_banded_parity(capsys):
     """cmd_bench config 4 (banded long reads) at test scale with the
-    oracle-truncated banded parity gate, pallas(interpret) backend."""
+    oracle-truncated banded parity gate, on the default device engine."""
     rc = main([
         "bench", "4", "--pairs", "8", "--long-len", "600", "--band", "32",
         "--parity-check", "--parity-pairs", "1",

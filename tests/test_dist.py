@@ -10,9 +10,9 @@ import pytest
 
 import jax
 
-from seqalib_tpu import ScoringParams, align_batch
-from seqalib_tpu.oracle import align_oracle
-from seqalib_tpu.parallel.dist import make_pair_mesh
+from seqalib import ScoringParams, align_batch
+from seqalib.oracle import align_oracle
+from seqalib.parallel.dist import make_pair_mesh
 
 from conftest import random_dna, random_protein
 
@@ -53,25 +53,6 @@ def test_sharded_global_affine_protein(mesh, rng):
     _check(res, qs, ts, sp, "global")
 
 
-def test_sharded_strip_local_parity(mesh, rng):
-    """backend='pallas' + mesh must ride the strip fast path (shard_map
-    over the fused coords program) and stay bit-exact vs the oracle."""
-    sp = ScoringParams.blosum62()
-    qs = [random_protein(rng, int(n)) for n in rng.integers(15, 80, size=11)]
-    ts = [random_protein(rng, int(n)) for n in rng.integers(15, 80, size=11)]
-    res = align_batch(qs, ts, scoring=sp, mode="local", backend="pallas", mesh=mesh)
-    _check(res, qs, ts, sp, "local")
-
-
-def test_sharded_strip_matches_unsharded(mesh, rng):
-    sp = ScoringParams.affine()
-    qs = [random_dna(rng, 48) for _ in range(10)]
-    ts = [random_dna(rng, 48) for _ in range(10)]
-    a = align_batch(qs, ts, scoring=sp, mode="local", backend="pallas", mesh=mesh)
-    b = align_batch(qs, ts, scoring=sp, mode="local", backend="pallas")
-    assert a == b
-
-
 def test_sharded_matches_unsharded(mesh, rng):
     sp = ScoringParams.affine()
     qs = [random_dna(rng, 64) for _ in range(16)]
@@ -81,35 +62,44 @@ def test_sharded_matches_unsharded(mesh, rng):
     assert a == b
 
 
-def test_sharded_strip_global_parity(mesh, rng):
-    """mesh + global + pallas rides the sharded strip fill (round 3;
-    VERDICT.md round-2 item 6a: it used to silently fall back to the XLA
-    scan) — full score+coords+CIGAR parity, batch not divisible by the
-    mesh."""
+def test_sharded_local_blosum62_parity(mesh, rng):
+    """Local + traceback over the mesh, batch not divisible by it."""
     sp = ScoringParams.blosum62()
-    qs = [random_protein(rng, int(n)) for n in rng.integers(10, 70, size=11)]
-    ts = [random_protein(rng, int(n)) for n in rng.integers(10, 70, size=11)]
-    res = align_batch(qs, ts, scoring=sp, mode="global", backend="pallas", mesh=mesh)
-    _check(res, qs, ts, sp, "global")
+    qs = [random_protein(rng, int(n)) for n in rng.integers(15, 80, size=11)]
+    ts = [random_protein(rng, int(n)) for n in rng.integers(15, 80, size=11)]
+    res = align_batch(qs, ts, scoring=sp, mode="local", mesh=mesh)
+    _check(res, qs, ts, sp, "local")
 
 
-def test_sharded_strip_global_matches_unsharded(mesh, rng):
+def test_sharded_local_matches_unsharded_odd_batch(mesh, rng):
     sp = ScoringParams.affine()
     qs = [random_dna(rng, 48) for _ in range(10)]
-    ts = [random_dna(rng, 52) for _ in range(10)]
-    a = align_batch(qs, ts, scoring=sp, mode="global", backend="pallas", mesh=mesh)
-    b = align_batch(qs, ts, scoring=sp, mode="global", backend="pallas")
+    ts = [random_dna(rng, 48) for _ in range(10)]
+    a = align_batch(qs, ts, scoring=sp, mode="local", mesh=mesh)
+    b = align_batch(qs, ts, scoring=sp, mode="local")
     assert a == b
 
 
-def test_sharded_banded_parity(mesh, rng):
-    """mesh + banded routes to the banded kernel with delta-groups
-    round-robined over the mesh devices (round 3; VERDICT.md round-2
-    item 6b: it used to silently run the full-matrix XLA path, which
-    cannot reach 100kb)."""
-    sp = ScoringParams(match=2, mismatch=-3, gap_open=-5, gap_extend=-2)
+def test_sharded_global_blosum62_parity(mesh, rng):
+    sp = ScoringParams.blosum62()
+    qs = [random_protein(rng, int(n)) for n in rng.integers(10, 70, size=11)]
+    ts = [random_protein(rng, int(n)) for n in rng.integers(10, 70, size=11)]
+    res = align_batch(qs, ts, scoring=sp, mode="global", mesh=mesh)
+    _check(res, qs, ts, sp, "global")
+
+
+def test_sharded_global_matches_unsharded(mesh, rng):
+    sp = ScoringParams.affine()
+    qs = [random_dna(rng, 48) for _ in range(10)]
+    ts = [random_dna(rng, 52) for _ in range(10)]
+    a = align_batch(qs, ts, scoring=sp, mode="global", mesh=mesh)
+    b = align_batch(qs, ts, scoring=sp, mode="global")
+    assert a == b
+
+
+def _mutated_pairs(rng, lengths):
     qs, ts = [], []
-    for n in rng.integers(40, 90, size=9):
+    for n in lengths:
         q = random_dna(rng, int(n))
         t = q.copy()
         k = max(1, int(n) // 10)
@@ -117,60 +107,58 @@ def test_sharded_banded_parity(mesh, rng):
         t[idx] = (t[idx] + 1 + rng.integers(0, 3, k)) % 4
         qs.append(q)
         ts.append(t)
-    res = align_batch(
-        qs, ts, scoring=sp, mode="global", band=16, backend="pallas", mesh=mesh
-    )
+    return qs, ts
+
+
+def test_sharded_banded_parity(mesh, rng):
+    """mesh + band: the masked-band engine, pair-sharded."""
+    sp = ScoringParams(match=2, mismatch=-3, gap_open=-5, gap_extend=-2)
+    qs, ts = _mutated_pairs(rng, rng.integers(40, 90, size=9))
+    res = align_batch(qs, ts, scoring=sp, mode="global", band=16, mesh=mesh)
     for r, q, t in zip(res, qs, ts):
-        o = align_oracle(q, t, sp, mode="global", band=16)
-        assert (r.score, r.cigar) == (o.score, o.cigar)
+        assert r == align_oracle(q, t, sp, mode="global", band=16)
 
 
 def test_sharded_banded_matches_unsharded(mesh, rng):
     sp = ScoringParams(match=2, mismatch=-3, gap_open=-5, gap_extend=-2)
     qs = [random_dna(rng, 60) for _ in range(6)]
     ts = [random_dna(rng, 64) for _ in range(6)]
-    a = align_batch(
-        qs, ts, scoring=sp, mode="global", band=16, backend="pallas", mesh=mesh
-    )
-    b = align_batch(qs, ts, scoring=sp, mode="global", band=16, backend="pallas")
+    a = align_batch(qs, ts, scoring=sp, mode="global", band=16, mesh=mesh)
+    b = align_batch(qs, ts, scoring=sp, mode="global", band=16)
     assert a == b
 
 
-def test_strip_sharded_escalation_and_lookahead(monkeypatch):
-    """Escalation through the MESH path's finalize closure: an alignment
-    taller than a pinned 128-row fused window must escalate inside
-    _strip_finalize (the launch/finalize split added for the streaming
-    lookahead) and still return canonical coords — both via the sync
-    call and via launch_only."""
-    import numpy as np
+def test_sharded_launch_only_defers_the_fetch(mesh, monkeypatch):
+    """run_bucket(launch_only=True) under a mesh returns before any host
+    fetch; the finalizer fetches, and equals the synchronous call."""
+    from seqalib.oracle import sw_affine
+    from seqalib.parallel import dispatch, dist
 
-    from seqalib_tpu.oracle import sw_affine
-    from seqalib_tpu.parallel.dist import make_pair_mesh, strip_sharded
-    from seqalib_tpu.parallel.dispatch import sentinel_table
-    from seqalib_tpu.types import ScoringParams
-
-    monkeypatch.setenv("SEQALIB_FUSED_WR", "128")
     rng = np.random.default_rng(5)
     sp = ScoringParams.affine(match=2, mismatch=-3, gap_open=-4,
                               gap_extend=-1)
     n = 200
     base = rng.integers(0, 4, n).astype(np.int32)
-    q = np.stack([base] * 3)
+    q = np.stack([base] * 8)
     t = q.copy()
     t[1, 50] = (t[1, 50] + 1) % 4
-    qlen = np.full(3, n, np.int32)
-    mesh = make_pair_mesh()
-    kw = dict(mode="local", gap_open=sp.gap_open, gap_extend=sp.gap_extend,
-              affine=True, want_tb=False)
-    out = strip_sharded(mesh, q, t, qlen, qlen, sentinel_table(sp), **kw)
-    fin = strip_sharded(mesh, q, t, qlen, qlen, sentinel_table(sp),
-                        launch_only=True, **kw)
+    lens = np.full(8, n, np.int32)
+    out = dispatch.run_bucket(q, t, lens, lens, sp, "local", None, False,
+                              mesh=mesh)
+    fetched = []
+    real = dist.gather_to_host
+    monkeypatch.setattr(
+        dist, "gather_to_host", lambda tree: fetched.append(1) or real(tree)
+    )
+    fin = dispatch.run_bucket(q, t, lens, lens, sp, "local", None, False,
+                              mesh=mesh, launch_only=True)
+    assert not fetched
     out2 = fin()
-    for b in range(3):
+    assert fetched
+    for b in range(8):
         ref = sw_affine(q[b], t[b], sp)
+        want = (ref.score, ref.query_start, ref.query_end, ref.target_start,
+                ref.target_end)
         for o in (out, out2):
-            got = (int(o["score"][b]), int(o["qs"][b]), int(o["qe"][b]),
-                   int(o["ts"][b]), int(o["te"][b]))
-            assert got == (ref.score, ref.query_start, ref.query_end,
-                           ref.target_start, ref.target_end), (b, got)
-        assert out["qe"][b] - out["qs"][b] > 128  # escalation actually hit
+            got = tuple(int(o[k][b]) for k in ("score", "qs", "qe", "ts", "te"))
+            assert got == want, (b, got)

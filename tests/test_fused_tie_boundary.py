@@ -1,15 +1,16 @@
-"""Pin the fused pass-2 canonical-tie guarantee boundary.
+"""Constructed canonical ties: the engine must return the oracle's
+canonical local start exactly.
 
-`_strip_local_fused`'s docstring derives two residual exposure classes
-where a knife-edge co-optimal TIE can return a non-canonical start
-WITHOUT escalating (escalation only catches score shortfalls, and a tie
-by definition has none).  This file constructs exposure class (a) — a
-tie whose canonical (min-ri) cell needs band imbalance > BW=64 in the
-banded pass-2 engine — and pins the behavior of both engines against
-the oracle (VERDICT.md round-2 item 7: the boundary must be
-regression-pinned, not just narrated).
+The local start is canonical when, among all optimal alignments ending at
+the canonical end, it is the one the anchored reverse extension reaches
+first (smallest ri, then smallest rj; oracle.py docstring).  Two problems
+below are built so that a co-optimal start exists far off that cell:
+engines that search a window around the end (band or column clamp) could
+return the other start with no score shortfall to betray it.  The device
+engine's pass 2 spans the full reversed prefixes, so it has no such
+window; these cases pin that.
 
-Construction (in pass-2 reversed space; scoring: diag +11, off -4,
+Construction (a) (in pass-2 reversed space; scoring: diag +11, off -4,
 linear gap -1):
 
   rq = [A-block 7][M-block 7][junk 28][N-block 7]            (49 rows)
@@ -17,8 +18,8 @@ linear gap -1):
 
 Two extension paths tie at the global max 84 = 7*11 - 70 + 7*11:
   P1 (canonical, ri=14): A-block, 70 deletions, M-block -> cell (14, 84)
-     with d = +70 > BW — OUTSIDE the banded engine's slot window;
-  P2 (ri=49): A-block, 35I+35D, N-block -> cell (49, 49), in-band.
+     with a net gap of 70;
+  P2 (ri=49): A-block, 35I+35D, N-block -> cell (49, 49), on the diagonal.
 Interior blocks alone score 77 < 84, and block order makes every other
 combination geometrically impossible, so the tie is exact and unique.
 """
@@ -26,10 +27,9 @@ combination geometrically impossible, so the tie is exact and unique.
 import numpy as np
 import pytest
 
-from seqalib_tpu.oracle import align_oracle
-from seqalib_tpu.ops.strip_pallas import strip_bucket
-from seqalib_tpu.parallel.dispatch import sentinel_table
-from seqalib_tpu.types import ScoringParams
+from seqalib.oracle import align_oracle
+from seqalib.parallel.dispatch import dispatch_batch
+from seqalib.types import ScoringParams
 
 
 def _tie_problem():
@@ -54,19 +54,10 @@ def _tie_problem():
     return q, t, sp
 
 
-def _run(q, t, sp, engine, monkeypatch):
-    monkeypatch.setenv("SEQALIB_FUSED_PASS2", engine)
-    return strip_bucket(
-        q[None, :].astype(np.int32),
-        t[None, :].astype(np.int32),
-        np.array([len(q)]),
-        np.array([len(t)]),
-        sentinel_table(sp),
-        mode="local",
-        gap_open=sp.gap_open,
-        gap_extend=sp.gap_extend,
-        affine=False,
-    )
+def _run(q, t, sp, traceback=True, mesh=None):
+    return dispatch_batch(
+        [q], [t], sp, mode="local", traceback=traceback, mesh=mesh
+    )[0]
 
 
 def test_oracle_tie_is_as_constructed():
@@ -79,92 +70,65 @@ def test_oracle_tie_is_as_constructed():
     assert o.cigar == "7M70D7M"
 
 
-def test_banded_engine_tie_exposure_is_pinned(monkeypatch):
-    """The banded pass-2 engine cannot see the canonical cell (d=+70 >
-    BW=64): it returns the in-band co-optimal start and — because the
-    tie has no score shortfall — does NOT escalate.  Score and end
-    coords remain exact.  If this test ever fails with qs == 35, the
-    exposure was closed — move the assertion, don't delete the test."""
+@pytest.mark.parametrize("traceback", [True, False])
+def test_engine_returns_canonical_tie(traceback):
     q, t, sp = _tie_problem()
-    out = _run(q, t, sp, "banded", monkeypatch)
-    assert int(out["score"][0]) == 84
-    assert (int(out["qe"][0]), int(out["te"][0])) == (49, 84)
-    # the documented non-canonical (in-band) start, accepted silently
-    assert (int(out["qs"][0]), int(out["ts"][0])) == (0, 35)
+    r = _run(q, t, sp, traceback)
+    assert r.score == 84
+    assert (r.query_end, r.target_end) == (49, 84)
+    assert (r.query_start, r.target_start) == (35, 0)
+    if traceback:
+        assert r.cigar == "7M70D7M"
 
 
-def test_strip_engine_returns_canonical_tie(monkeypatch):
-    """The strip pass-2 engine's column window covers the full target at
-    this scale, narrowing the exposure to class (b) only — it must
-    return the canonical start here (the docstring's mitigation claim)."""
+def test_engine_canonical_tie_on_a_mesh():
+    """The pair-sharded path runs the same program per device."""
+    from seqalib.parallel.dist import make_pair_mesh
+
     q, t, sp = _tie_problem()
-    out = _run(q, t, sp, "strip", monkeypatch)
-    assert int(out["score"][0]) == 84
-    assert (int(out["qs"][0]), int(out["ts"][0])) == (35, 0)
+    assert _run(q, t, sp, mesh=make_pair_mesh()) == align_oracle(
+        q, t, sp, mode="local"
+    )
 
 
-@pytest.mark.parametrize("engine", ["banded", "strip"])
-def test_tie_safe_mode_closes_the_exposure(engine, monkeypatch):
-    """SEQALIB_FUSED_TIE_SAFE=1 (round 4, VERDICT round-3 item 8): the
-    banded engine tracks the window-edge crossing bound and escalates the
-    constructed tie to the oracle-exact host rescan; the strip engine is
-    already canonical here.  Both engines return the canonical start."""
+def test_engine_canonical_tie_in_a_batch():
+    """The tie pair beside ordinary pairs of another length bucket."""
     q, t, sp = _tie_problem()
-    monkeypatch.setenv("SEQALIB_FUSED_TIE_SAFE", "1")
-    out = _run(q, t, sp, engine, monkeypatch)
-    assert int(out["score"][0]) == 84
-    assert (int(out["qe"][0]), int(out["te"][0])) == (49, 84)
-    assert (int(out["qs"][0]), int(out["ts"][0])) == (35, 0)
+    rng = np.random.default_rng(3)
+    qs = [q] + [rng.integers(0, 21, 150).astype(np.uint8) for _ in range(3)]
+    ts = [t] + [rng.integers(0, 21, 170).astype(np.uint8) for _ in range(3)]
+    got = dispatch_batch(qs, ts, sp, mode="local")
+    for g, qq, tt in zip(got, qs, ts):
+        assert g == align_oracle(qq, tt, sp, mode="local")
 
 
-def test_tie_safe_keeps_clean_pairs_exact(monkeypatch):
-    """tie_safe may escalate aggressively (that is its design) but the
-    escalated host rescan must keep results oracle-exact on ordinary
-    pairs: full-coords parity on a random BLOSUM62 batch."""
-    from seqalib_tpu.oracle import align_oracle
-    from seqalib_tpu.types import ScoringParams
-
+def test_clean_pairs_exact():
+    """Full-coords parity on a random BLOSUM62 batch."""
     rng = np.random.default_rng(7)
     sp = ScoringParams.blosum62()
     B, L = 8, 96
-    qs = rng.integers(0, 20, size=(B, L)).astype(np.int32)
-    ts = rng.integers(0, 20, size=(B, L)).astype(np.int32)
-    monkeypatch.setenv("SEQALIB_FUSED_TIE_SAFE", "1")
-    out = strip_bucket(
-        qs,
-        ts,
-        np.full(B, L),
-        np.full(B, L),
-        sentinel_table(sp),
-        mode="local",
-        gap_open=sp.gap_open,
-        gap_extend=sp.gap_extend,
-        affine=True,
-    )
-    for b in range(B):
-        o = align_oracle(qs[b], ts[b], sp, mode="local")
-        assert int(out["score"][b]) == o.score
-        assert (int(out["qs"][b]), int(out["ts"][b])) == (
-            o.query_start,
-            o.target_start,
-        ), b
+    qs = [rng.integers(0, 20, L).astype(np.uint8) for _ in range(B)]
+    ts = [rng.integers(0, 20, L).astype(np.uint8) for _ in range(B)]
+    got = dispatch_batch(qs, ts, sp, mode="local", traceback=False)
+    for g, q, t in zip(got, qs, ts):
+        o = align_oracle(q, t, sp, mode="local")
+        assert (g.score, g.query_start, g.query_end, g.target_start,
+                g.target_end) == (o.score, o.query_start, o.query_end,
+                                  o.target_start, o.target_end)
 
 
-# ---- exposure class (b): ties beyond the column clamp (round 5) ---------
+# ---- class (b): a tie beyond a 256-column window --------------------------
 #
 # Construction (reversed space; matrix diag X=Z=+11, Y=+4, else -4,
-# linear gap -1; 12-letter table so the PROFILE path runs — an A1<=8
-# table silently takes the scalar match/mismatch route):
+# linear gap -1; a 12-letter table):
 #
 #   rq = [X*28][Z*28][junk*28][Y*40]                      (124 rows)
 #   rt = [X*28][Y*40][junk][Z*28 @232..259]               (260 cols)
 #
 # Two extension paths tie at 412:
-#   P1 (canonical, ri=56):  X-block, 204 D, Z-block -> cell (56, 260)
-#      — rj = 260 lies beyond BOTH engines' column clamps at this
-#      geometry (banded WR+BW = 192; strip TWD = 256), and beyond the
-#      banded slot window (d = 204 > BW);
-#   P2 (ri=124, in-window): X-block, 56 I, Y-block -> cell (124, 68).
+#   P1 (canonical, ri=56):  X-block, 204 D, Z-block -> cell (56, 260),
+#      with rj = 260 past any 256-column window and a net gap of 204;
+#   P2 (ri=124): X-block, 56 I, Y-block -> cell (124, 68).
 # The distinct Z suffix block pins P1's prefix to rows 0-27 (an X
 # suffix let the prefix slide and moved the forward END off the anchor).
 
@@ -198,33 +162,28 @@ def test_oracle_class_b_tie_is_as_constructed():
     assert o.cigar == "28M204D28M"
 
 
-@pytest.mark.parametrize("engine", ["banded", "strip"])
-def test_class_b_exposure_is_pinned_without_tie_safe(engine, monkeypatch):
-    """Default mode: neither engine can see the canonical cell (rj=260 >
-    clamp), the in-window tie has no score shortfall, so both return the
-    non-canonical start silently — the documented class-(b) exposure.
-    If this fails with qs == 68, the exposure was closed by default —
-    move the assertion, don't delete the test."""
+@pytest.mark.parametrize("traceback", [True, False])
+def test_engine_returns_canonical_class_b_tie(traceback):
     q, t, sp = _tie_problem_b()
-    out = _run(q, t, sp, engine, monkeypatch)
-    assert int(out["score"][0]) == 412
-    assert (int(out["qe"][0]), int(out["te"][0])) == (124, 260)
-    assert (int(out["qs"][0]), int(out["ts"][0])) == (0, 192)
+    r = _run(q, t, sp, traceback)
+    assert r.score == 412
+    assert (r.query_end, r.target_end) == (124, 260)
+    assert (r.query_start, r.target_start) == (68, 0)
+    if traceback:
+        assert r.cigar == "28M204D28M"
 
 
-@pytest.mark.parametrize("engine", ["banded", "strip"])
-def test_tie_safe_closes_class_b(engine, monkeypatch):
-    """tie_safe closes class (b) on BOTH engines (round 5):
+def test_engine_canonical_class_b_tie_on_a_mesh():
+    from seqalib.parallel.dist import make_pair_mesh
 
-    - banded: any beyond-clamp cell has rj > WR+BW with ri <= WR, hence
-      d > BW — every path to it crosses the EV-tracked band edge via a
-      D step in gap state, so the round-4 edge bound already covers (b);
-      no new mechanism needed (this test is the empirical confirmation);
-    - strip: no EV accumulator exists, but (b) can only fire when the
-      column window was truncated (te > TWD) — tie_safe now escalates
-      exactly those pairs to the oracle-exact host rescan."""
     q, t, sp = _tie_problem_b()
-    monkeypatch.setenv("SEQALIB_FUSED_TIE_SAFE", "1")
-    out = _run(q, t, sp, engine, monkeypatch)
-    assert int(out["score"][0]) == 412
-    assert (int(out["qs"][0]), int(out["ts"][0])) == (68, 0)
+    assert _run(q, t, sp, mesh=make_pair_mesh()) == align_oracle(
+        q, t, sp, mode="local"
+    )
+
+
+def test_engine_canonical_class_b_tie_transposed():
+    """Query and target swapped: the oracle's canonical start moves, and
+    the engine follows it."""
+    q, t, sp = _tie_problem_b()
+    assert _run(t, q, sp) == align_oracle(t, q, sp, mode="local")

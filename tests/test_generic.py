@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from seqalib_tpu.models.generic import (
+from seqalib.models.generic import (
     FOGSAA,
     AlignedSequence,
     DiagonalWindowsSA,
@@ -11,8 +11,8 @@ from seqalib_tpu.models.generic import (
     ScoringSystem,
     SmithWatermanSA,
 )
-from seqalib_tpu.oracle import align_oracle
-from seqalib_tpu.types import ScoringParams, encode_dna
+from seqalib.oracle import align_oracle
+from seqalib.types import ScoringParams, encode_dna
 
 
 def test_nw_matches_oracle_on_dna():
@@ -140,8 +140,8 @@ def test_myers_miller_matches_gotoh_oracle():
     """Linear-space affine global alignment: optimal score must equal the
     full-matrix Gotoh oracle on randomized pairs, and the emitted columns
     must be a valid alignment whose re-score equals the reported score."""
-    from seqalib_tpu.models.generic import MyersMillerSA
-    from seqalib_tpu.oracle import nw_affine
+    from seqalib.models.generic import MyersMillerSA
+    from seqalib.oracle import nw_affine
 
     rng = np.random.default_rng(0)
     sc = ScoringSystem(gap_penalty=-1, match_profit=3, mismatch_penalty=-2)
@@ -165,8 +165,8 @@ def test_myers_miller_matches_gotoh_oracle():
 def test_myers_miller_long_gappy_pair():
     """A pair whose optimum is one long straddling deletion (the case the
     midline gap-merge credit exists for)."""
-    from seqalib_tpu.models.generic import MyersMillerSA
-    from seqalib_tpu.oracle import nw_affine
+    from seqalib.models.generic import MyersMillerSA
+    from seqalib.oracle import nw_affine
 
     rng = np.random.default_rng(7)
     core = rng.integers(0, 4, 60)
@@ -183,8 +183,8 @@ def test_myers_miller_long_gappy_pair():
 def test_gotoh_generic_matches_oracle():
     """GotohSA (full-matrix affine, generic elements): global and local
     results must match the engine oracle exactly, CIGAR included."""
-    from seqalib_tpu.models.generic import GotohSA
-    from seqalib_tpu.oracle import nw_affine, sw_affine
+    from seqalib.models.generic import GotohSA
+    from seqalib.oracle import nw_affine, sw_affine
 
     rng = np.random.default_rng(3)
     sc = ScoringSystem(match_profit=2, mismatch_penalty=-3)

@@ -1,12 +1,9 @@
-"""Execute the REAL multi-process branches once per CI run (VERDICT
-round-4 item 5): two `jax.distributed` CPU processes forming one global
-8-device mesh, driving the sharded strip path end-to-end.  This reaches
-what the single-process fake mesh cannot: `jax.process_count() > 1`
-feeding (make_array_from_callback over non-addressable shards) and the
+"""Execute the REAL multi-process branches once per CI run: two
+`jax.distributed` CPU processes forming one global 8-device mesh, driving
+the pair-sharded wavefront end-to-end.  This reaches what the
+single-process fake mesh cannot: `jax.process_count() > 1` feeding
+(make_array_from_callback over non-addressable shards) and the
 `multihost_utils.process_allgather` branch of dist.gather_to_host.
-
-Real >=2-host TPU numbers remain hardware-impossible in this
-environment (one chip); this pins the process-boundary CODE PATH.
 """
 
 import os

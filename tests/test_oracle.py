@@ -4,15 +4,15 @@ tie-break cases, BLOSUM62 spot values, CIGAR round-trip (SURVEY.md §4.1)."""
 import numpy as np
 import pytest
 
-from seqalib_tpu.oracle import nw_affine, nw_linear, sw_affine, sw_linear
-from seqalib_tpu.types import (
+from seqalib.oracle import nw_affine, nw_linear, sw_affine, sw_linear
+from seqalib.types import (
     BLOSUM62,
     PROTEIN_ALPHABET,
     ScoringParams,
     encode_dna,
     encode_protein,
 )
-from seqalib_tpu.utils.cigar import (
+from seqalib.utils.cigar import (
     cigar_consumed,
     cigar_to_ops,
     ops_to_cigar,

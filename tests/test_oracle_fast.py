@@ -9,8 +9,8 @@ results across randomized and adversarial cases.
 import numpy as np
 import pytest
 
-from seqalib_tpu import oracle, oracle_fast
-from seqalib_tpu.types import ScoringParams
+from seqalib import oracle, oracle_fast
+from seqalib.types import ScoringParams
 
 DNA_LIN = ScoringParams(match=2, mismatch=-3, gap_open=0, gap_extend=-2)
 DNA_AFF = ScoringParams(match=2, mismatch=-3, gap_open=-5, gap_extend=-2)

@@ -4,9 +4,9 @@
 import numpy as np
 import pytest
 
-from seqalib_tpu.api import align_batch
-from seqalib_tpu.oracle import align_oracle
-from seqalib_tpu.types import ScoringParams
+from seqalib.api import align_batch
+from seqalib.oracle import align_oracle
+from seqalib.types import ScoringParams
 
 LIN = ScoringParams.linear(match=2, mismatch=-3, gap=-2)
 AFF = ScoringParams.affine(match=2, mismatch=-3, gap_open=-4, gap_extend=-1)
@@ -98,7 +98,7 @@ def test_adversarial_shapes(rng):
         ("A" * 16, "A" * 17),  # straddles bucket boundary
         ("A" * 15, "A" * 16),
     ]
-    from seqalib_tpu.types import encode_dna
+    from seqalib.types import encode_dna
 
     qs = [encode_dna(a) for a, _ in cases]
     ts = [encode_dna(b) for _, b in cases]

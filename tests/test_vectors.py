@@ -1,7 +1,7 @@
 """Reference test-vector parity (SURVEY.md §4.6 drop-in slot).
 
 Runs every vector in tests/vectors/*.jsonl against the oracle and the
-pallas backend; skips cleanly when no vectors are present (the reference
+device engine; skips cleanly when no vectors are present (the reference
 mount was empty at survey time, SURVEY.md §0)."""
 
 import glob
@@ -27,11 +27,11 @@ def _load_vectors():
 VECTORS = _load_vectors()
 
 
-@pytest.mark.parametrize("backend", ["oracle", "pallas"])
+@pytest.mark.parametrize("backend", ["oracle", "xla"])
 def test_reference_vectors(backend):
     if not VECTORS:
         pytest.skip("no reference vectors present (empty mount, SURVEY.md §0)")
-    import seqalib_tpu as sa
+    import seqalib as sa
 
     for v in VECTORS:
         sp = sa.ScoringParams(**v["scoring"])
